@@ -12,9 +12,9 @@ import sys as _sys, os as _os
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 if "--convergence" in _sys.argv:
-    # the convergence sweep is an f64 accuracy study: on the ambient f32
-    # TPU the n=128 profile error floors at the Krylov rounding level
-    # (~1.6e-2) and the fitted order collapses
+    # the convergence sweep is an f64 accuracy study: in f32 the n=128
+    # profile error floors at the Krylov rounding level (~1.6e-2) and the
+    # fitted order collapses
     from benchmarks.phaseflow.harness import ensure_cpu_f64
     ensure_cpu_f64()
 

@@ -9,7 +9,7 @@ inflow with Umax = 0.3 -> Ubar = 0.2, nu = 1e-3 -> Re = Ubar D / nu = 20.
 Published ranges: Cd in [5.5700, 5.5900], Cl in [0.0104, 0.0110],
 dP in [0.1172, 0.1176].
 
-Measured (TPU v5e, f32, round 5 — fgmres/DCT-Schur JFNK; EXACT wall
+Accuracy record (f32, round 5 — fgmres/DCT-Schur JFNK; EXACT wall
 geometry via the -h/2 origin shift + ghost wall rows + DOF-centroid BC
 sampling; moment-consistent cut flux DEFAULT; forces by BOTH the rim
 traction integral and the control-volume momentum-deficit integral;
@@ -33,7 +33,7 @@ the channel walls sat h/2 high (mesh convention) and the inflow profile
 was sampled half a cell off the DOF centroids — at 256x128 that was
 worth +7% on Cd (6.19 -> 5.79).
 
-Run (TPU):  python benchmarks/dfg_cylinder_steady.py [--coarse|--fine]
+Run:  python benchmarks/dfg_cylinder_steady.py [--coarse|--fine]
 """
 
 import sys as _sys, os as _os

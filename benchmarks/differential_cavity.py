@@ -9,7 +9,7 @@ marched to steady state.  Gates (same as the reference's asserts):
 - peak |u_x| on the vertical midline, scaled by alpha/L:  3.634 within 10%
 - peak |u_y| on the horizontal midline, scaled by alpha/L: 3.7   within 10%
 
-Run (TPU):  python benchmarks/differential_cavity.py [--coarse]
+Run:  python benchmarks/differential_cavity.py [--coarse]
 """
 
 import sys as _sys, os as _os
@@ -84,7 +84,7 @@ def main():
     coupler, (mesh_ux, mesh_uy, mesh_p) = build(n)
     t0 = time.time()
     k, du = 0, np.inf
-    chunk = 20  # steps per compiled scan (watchdog-safe, conv check between)
+    chunk = 20  # steps per compiled scan (short scans, conv check between)
     while coupler.time < t_end - 1e-9:
         x_prev = coupler.x
         # pgmres: BiCGStab overflows on the f32 saddle point (cf. DFG run)

@@ -19,10 +19,10 @@ refinement; measured orders (n=8..32): max-norm 1.71 (corner-ring
 limited), L2 1.82 (gated > 1.5 / > 1.8).
 
 Run:  python benchmarks/duct3d_poiseuille.py           (CPU f64 study)
-      python benchmarks/duct3d_poiseuille.py --tpu     (adds a TPU f32
-                                                        ms/step row at
-                                                        8x48x29 CN)
-      python benchmarks/duct3d_poiseuille.py --tpu-large   (PRODUCTION-
+      python benchmarks/duct3d_poiseuille.py --timing  (an f32 ms/step
+                                                        row at 8x48x29
+                                                        CN, on the GPU)
+      python benchmarks/duct3d_poiseuille.py --timing-large (PRODUCTION-
                                     scale row: 128x128x77 = 1.26M cells,
                                     CN/pgmres marched, warm-chunk timing)
 """
@@ -30,9 +30,9 @@ Run:  python benchmarks/duct3d_poiseuille.py           (CPU f64 study)
 import sys as _sys, os as _os
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-tpu_row = "--tpu" in _sys.argv
-tpu_large = "--tpu-large" in _sys.argv
-if not (tpu_row or tpu_large):
+timing_row = "--timing" in _sys.argv
+timing_large = "--timing-large" in _sys.argv
+if not (timing_row or timing_large):
     from benchmarks.phaseflow.harness import ensure_cpu_f64
     ensure_cpu_f64()
 
@@ -163,8 +163,8 @@ def _study():
     print("OK")
 
 
-def _tpu_row():
-    # TPU timing row: 48x48x29-class 3D duct, implicit-Picard CN steps
+def _timing_row():
+    # f32 timing row: 48x48x29-class 3D duct, implicit-Picard CN steps
     # (fgmres/DCT inner solves), marched from rest with the exact-series
     # inflow.  f32 note: the 80-term cosh series overflows f32 (cosh(74)
     # is fine, k>100 is not) — the traced BC series caps terms; the f32
@@ -199,17 +199,16 @@ def _tpu_row():
     jax.block_until_ready(solver.x)
     ms = (time.time() - t_warm) / 20 * 1e3
     umax = float(max(np.abs(np.asarray(u)).max() for u in solver.x[:4]))
-    print(f"TPU f32 8x{n}x{max(int(round(n*b/a)),4)} CN/AB2 pgmres: "
+    print(f"f32 8x{n}x{max(int(round(n*b/a)),4)} CN/AB2 pgmres: "
           f"{ms:.1f} ms/step (warm 10-step chunk), max|u| {umax:.3f}")
     assert np.isfinite(ms) and np.isfinite(umax) and umax < 10.0
     print("OK")
 
 
-def _tpu_large_row():
+def _timing_large_row():
     """The >=1M-cell 3D NS number: 128x128x77 duct (1.26M pressure cells,
     9.2M state values), CN + block-Schur pgmres marched from rest, f32.
-    Timed over warm 10-step chunks (one compiled scan, chunked under the
-    TPU-runtime watchdog).  Alongside ms/step the row reports GMRES
+    Timed over warm 10-step chunks (one compiled scan, short chunks).  Alongside ms/step the row reports GMRES
     its/step and the cell-step throughput — the quantities a production
     sizing decision needs; 'achieved bandwidth' is NOT printed because a
     matrix-free NS step is a fused chain whose true HBM traffic XLA
@@ -227,9 +226,8 @@ def _tpu_large_row():
         _SKIP_STEADY = False
     Ny, Nz = n, max(int(round(n * b / a)), 4)
     ncells = nx * Ny * Nz
-    # SHORT dispatch chunks: a 10-step scan with maxiter-200 inner solves
-    # at this size crashed the TPU worker (runtime watchdog); 2-step
-    # chunks with maxiter 60 keep each dispatch well under it
+    # SHORT dispatch chunks: 2-step chunks with maxiter 60 keep each
+    # device-side scan short
     chunk = 2
     t0 = time.time()
     solver.solve_unsteady(dt, chunk * dt, scheme="CN", method="pgmres",
@@ -254,7 +252,7 @@ def _tpu_large_row():
     rel = np.concatenate(rels)
     umax = float(max(np.abs(np.asarray(u)).max() for u in solver.x[:6]))
     thru = ncells / (ms * 1e-3) / 1e6
-    print(f"TPU f32 {nx}x{Ny}x{Nz} ({ncells/1e6:.2f}M cells) CN pgmres: "
+    print(f"f32 {nx}x{Ny}x{Nz} ({ncells/1e6:.2f}M cells) CN pgmres: "
           f"{ms:.0f} ms/step warm, GMRES {it.mean():.0f} it/step "
           f"(max {it.max()}, relres max {rel.max():.1e}), "
           f"{thru:.1f} Mcell-steps/s, max|u| {umax:.3f}", flush=True)
@@ -264,9 +262,9 @@ def _tpu_large_row():
 
 
 if __name__ == "__main__":
-    if tpu_large:
-        _tpu_large_row()
-    elif tpu_row:
-        _tpu_row()
+    if timing_large:
+        _timing_large_row()
+    elif timing_row:
+        _timing_row()
     else:
         _study()

@@ -7,25 +7,23 @@ factorization: the matrix-free path time-marches the CN/AB2 unsteady
 solver (warm-started GMRES per step, mass-dominated and well-conditioned
 for moderate dt) until the flow is statistically steady.
 
-Run (TPU recommended):  python benchmarks/lid_cavity_ghia_re1000.py [n] [t_end]
+Run (on the GPU):  python benchmarks/lid_cavity_ghia_re1000.py [n] [t_end]
 
-Recorded results (TPU v5e, f32, steady JFNK over jvp with the robust
+Recorded results (f32, steady JFNK over jvp with the robust
 fgmres/DCT-Schur inner solves + ghost wall rows; errors at Ghia's
-tabulated points, the standard comparison; wall times are WARM-cache —
-cold compile adds minutes, docs/BENCHMARKS.md "Cold-start honesty"):
-- 128²: ~53 s wall;  max|u-ghia| = 0.0533, max|v-ghia| = 0.0591,
+tabulated points, the standard comparison; wall time on the GPU not
+measured yet):
+- 128²: max|u-ghia| = 0.0533, max|v-ghia| = 0.0591,
   min u = -0.356 (Ghia -0.38289)
-- 256²: ~2-3 min wall;  max|u-ghia| = 0.0144, max|v-ghia| = 0.0065,
+- 256²: max|u-ghia| = 0.0144, max|v-ghia| = 0.0065,
   min u = -0.3779, max v = +0.3655 (Ghia -0.38289 / +0.37095)
   (round-3 Chebyshev-path record 0.0145/0.0046-0.0074 — f32 run-to-run
   drift; the Chebyshev inner solver is faster when it works but stalls
   host-dependently, so the robust path is the default)
 The 128² -> 256² error drop (x3.7 in u, x12 in v) demonstrates mesh
 convergence to the Ghia profile well inside the 0.02 target; the 128²
-residue is wall/cut discretization, not solver error.  (Round 1 needed
-281 s of time marching at 128² for a worse profile.)  Note: f64 is
-emulated on v5e and crashes the TPU worker at this size; run f64
-variants on CPU.
+residue is wall/cut discretization, not solver error.  (Round 1's time
+marching reached a worse profile.)
 """
 
 import sys as _sys, os as _os
@@ -85,8 +83,8 @@ def run(n=128, t_end=30.0, Re=1000.0, dt=2.5e-3, dtype=None):
     t0 = time.time()
     if t_end <= 0:
         # steady path (default): JFNK with block-Schur-preconditioned
-        # GMRES(100) over jvp — |R| 1e1 -> f32 floor ~5e-7 in ~24 s at
-        # 128² on one v5e chip (the time-marching path below needed 281 s)
+        # GMRES(100) over jvp — |R| 1e1 -> f32 floor ~5e-7 at 128² (the
+        # time-marching path below is several times slower)
         s.solve_steady_newton_krylov(max_iter=30, tol=1e-12,
                                      lin_maxiter=800, picard_warmup=0)
         print(f"JFNK steady: wall={time.time() - t0:.1f}s  residuals="

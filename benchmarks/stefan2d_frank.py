@@ -1,17 +1,19 @@
-"""2D front-tracking Stefan step timing on TPU (the flagship moving-
-interface configuration, f32): measures ms per GN iteration — a full slab
-geometry rebuild + temperature solve + autodiff volume Jacobian + LM update.
+"""2D front-tracking Stefan step timing on the Frank disk (the flagship
+moving-interface configuration, f32): measures ms per GN iteration — a
+full slab geometry rebuild + temperature solve + volume Jacobian + LM
+update — and gates the front radius against the analytic Frank solution.
 
-Run (on the TPU host):  python benchmarks/stefan2d_tpu.py
+Run:  python benchmarks/stefan2d_frank.py        (64², both Jacobians; 128², 256²)
+      python benchmarks/stefan2d_frank.py 512    (512² with 512 markers)
 """
 
 import sys as _sys, os as _os
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))) if "examples" in __file__ else _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
+_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import time
+from types import SimpleNamespace
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 from scipy.special import exp1
 
@@ -19,8 +21,12 @@ import penguin_tpu as pt
 from penguin_tpu.front_tracking import FrontTracker
 from penguin_tpu.solvers.stefan2d import StefanMono2D
 
+NEWTON = (8, 1e-4, 1e-6, 1.0)
 
-def main(n=64, nm=64, dtype=jnp.float32, jac="autodiff"):
+
+def frank_disk(n, nm, dtype=jnp.float32):
+    """Frank-disk Stefan problem (S = 1) on an ``n`` x ``n`` grid with
+    ``nm`` front markers, started from the similarity solution at t0 = 1."""
     S = 1.0
     St = (S**2 / 4) * np.exp(S**2 / 4) * exp1(S**2 / 4)
     T_inf = -St
@@ -53,11 +59,29 @@ def main(n=64, nm=64, dtype=jnp.float32, jac="autodiff"):
                                 pt.FluxJump(1.0, 1.0, 1.0))
     solver = StefanMono2D(phase, bc_b, pt.Dirichlet(0.0), dt,
                           (Tw0, jnp.zeros(mesh.np_shape, dtype)), mesh, "BE")
+    return SimpleNamespace(solver=solver, front=front, ic=ic, dt=dt,
+                           markers0=front.markers, center=center, S=S, t0=t0)
 
-    mk0 = front.markers
+
+def run(case, n_steps, jac="intercept"):
+    """March ``n_steps`` from the initial front (reset first, so repeated
+    calls run the identical problem and reuse the solver's compiled loop).
+    Returns (front radius, analytic radius)."""
+    case.front.markers = case.markers0
+    case.solver.solve(case.front, 0.0, (n_steps + 0.5) * case.dt, case.ic,
+                      newton_params=NEWTON, interior_fluid=False,
+                      method="auto", jac=jac, p=4, s=1)
+    mk = np.asarray(case.solver.markers)
+    R_end = float(np.sqrt(((mk - np.asarray(case.center)) ** 2).sum(1)).mean())
+    R_ana = case.S * np.sqrt(case.t0 + len(case.solver.iters_log) * case.dt)
+    return R_end, R_ana
+
+
+def main(n=64, nm=64, dtype=jnp.float32, jac="autodiff"):
+    case = frank_disk(n, nm, dtype)
+    solver = case.solver
     t0w = time.time()
-    solver.solve(front, 0.0, 1.5 * dt, ic, newton_params=(8, 1e-4, 1e-6, 1.0),
-                 interior_fluid=False, method="auto", jac=jac, p=4, s=1)
+    run(case, 1, jac)
     wall = time.time() - t0w
     iters = int(solver.iters_log.sum())
     print(f"[jac={jac}] grid {n}x{n}, {nm} markers, "
@@ -65,19 +89,13 @@ def main(n=64, nm=64, dtype=jnp.float32, jac="autodiff"):
     print(f"total {wall:.2f}s (incl. trace + compile)")
     # steady-state timing: warm + timed calls run the IDENTICAL problem
     # (front reset between calls) so the second call hits the solver's
-    # compiled-loop cache — pure device time.  (Letting the front evolve
-    # between calls can bump the auto band budget across a power-of-two
-    # boundary and silently charge a full re-trace to the timed call.)
+    # compiled-loop cache.  (Letting the front evolve between calls can
+    # bump the auto band budget across a power-of-two boundary and
+    # silently charge a full re-trace to the timed call.)
     n_steps = 20
-    front.markers = mk0
-    solver.solve(front, 0.0, (n_steps + 0.5) * dt,
-                 ic, newton_params=(8, 1e-4, 1e-6, 1.0),
-                 interior_fluid=False, method="auto", jac=jac, p=4, s=1)
-    front.markers = mk0
+    run(case, n_steps, jac)
     t0w = time.time()
-    solver.solve(front, 0.0, (n_steps + 0.5) * dt,
-                 ic, newton_params=(8, 1e-4, 1e-6, 1.0),
-                 interior_fluid=False, method="auto", jac=jac, p=4, s=1)
+    R_end, R_ana = run(case, n_steps, jac)
     wall = time.time() - t0w
     iters = int(solver.iters_log.sum())
     klv = int(np.asarray(solver.krylov_iters).sum())
@@ -94,13 +112,10 @@ def main(n=64, nm=64, dtype=jnp.float32, jac="autodiff"):
     # is HOST-DEPENDENT — on some environments the GN bounces at residual
     # ~0.1 or NaNs while the same problem converges under intercept — so
     # that leg gates only marker sanity and is reported as timing.
-    mk = np.asarray(solver.markers)
-    R_end = float(np.sqrt(((mk - np.asarray(center)) ** 2).sum(1)).mean())
-    K_run = len(solver.iters_log)
-    R_ana = S * np.sqrt(t0 + K_run * dt)
     print(f"front radius {R_end:.4f} vs analytic {R_ana:.4f} "
           f"({(R_end / R_ana - 1) * 100:+.1f}%)")
-    assert np.isfinite(mk).all(), "markers went non-finite"
+    assert np.isfinite(np.asarray(solver.markers)).all(), \
+        "markers went non-finite"
     if jac == "intercept":
         assert np.isfinite(np.asarray(solver.residual_log)).all(), \
             "GN residuals went non-finite"
@@ -113,9 +128,8 @@ def main(n=64, nm=64, dtype=jnp.float32, jac="autodiff"):
 
 
 if __name__ == "__main__":
-    import sys
-    if len(sys.argv) > 1:
-        n = int(sys.argv[1])
+    if len(_sys.argv) > 1:
+        n = int(_sys.argv[1])
         main(n=n, nm=n, jac="intercept")
     else:
         main(jac="autodiff")

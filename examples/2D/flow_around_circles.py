@@ -7,7 +7,7 @@ A short unsteady run establishes the wake; asserts a velocity deficit
 behind every cylinder, a positive combined drag larger than the
 single-cylinder value at the same blockage, and global boundedness.
 
-Run (TPU recommended; ~1200 CN steps):
+Run (on the GPU; ~1200 CN steps):
     python examples/2D/flow_around_circles.py
 """
 

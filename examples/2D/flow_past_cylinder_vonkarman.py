@@ -9,14 +9,14 @@ gives the Strouhal number.  Unconfined Re=150 sheds at St ~ 0.18; the 20%
 blockage plus parabolic inflow raises it to ~0.30, matching the DFG
 confined-cylinder benchmark at the same blockage
 (benchmarks/dfg_cylinder_shedding.py: St 0.295-0.305).
-Measured (TPU v5e, f32): Cd_mean 3.06, Cl_amp 1.54, St 0.300 at 64 ms/step.
+Measured (f32): Cd_mean 3.06, Cl_amp 1.54, St 0.300.
 
 The reference drives shedding with a modulated inflow and post-processes a
 stored state history on the host; here the inflow is steady, the lift/drag
 are recorded inside the jitted scan (one scalar triple per step, no state
 history materialized), and the run is chunked to reuse one compiled scan.
 
-Run (TPU recommended):  python examples/2D/flow_past_cylinder_vonkarman.py
+Run (on the GPU):  python examples/2D/flow_past_cylinder_vonkarman.py
 """
 
 import sys as _sys, os as _os

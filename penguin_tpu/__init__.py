@@ -1,4 +1,4 @@
-"""penguin_tpu — a TPU-native cut-cell finite-volume framework.
+"""penguin_tpu — a cut-cell finite-volume framework for accelerators.
 
 From-scratch JAX/XLA/Pallas re-design of the capabilities of the Julia
 reference Penguin.jl (see SURVEY.md): level-set capacity construction,
@@ -12,35 +12,23 @@ import os as _os
 
 import jax as _jax
 
-# Persistent XLA compilation cache: compiles in this environment go through a
-# remote service (~40 s/graph), so caching across processes is essential.
-# The cache is partitioned per host CPU: XLA:CPU AOT executables baked for
-# one machine's feature set can SIGILL on another (observed as pytest
-# segfaults after a host swap — the loader only warns on feature mismatch).
+
+def _compile_cache_dir(environ=_os.environ):
+    """Where the persistent XLA compilation cache lives: the directory
+    ``JAX_COMPILATION_CACHE_DIR`` names if it is set, else ``.jax_cache``
+    at the root of the checkout.  The path is fixed (it is part of the
+    cache's key), so a second process finds what a first one compiled."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
 
 
-def _host_cache_tag():
-    import hashlib as _hashlib
-    import platform as _platform
-
-    try:
-        with open("/proc/cpuinfo") as f:
-            flags = next(
-                (ln for ln in f if ln.startswith(("flags", "Features"))), "")
-    except OSError:  # pragma: no cover
-        flags = _platform.processor()
-    h = _hashlib.sha1(flags.encode()).hexdigest()[:10]
-    return f"{_platform.machine()}-{h}"
-
-
-_cache_dir = _os.environ.get("JAX_COMPILATION_CACHE_DIR")
-if _cache_dir is None:
-    _cache_dir = _os.path.join("/root/.jax_cache", _host_cache_tag())
 try:
+    _cache_dir = _compile_cache_dir()
     _os.makedirs(_cache_dir, exist_ok=True)
     _jax.config.update("jax_compilation_cache_dir", _cache_dir)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-except Exception:  # pragma: no cover - cache is an optimization only
+except OSError:  # pragma: no cover - the cache is an optimization only
     pass
 
 from .mesh import Mesh, SpaceTimeMesh

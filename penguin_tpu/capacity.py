@@ -1,6 +1,6 @@
 """Cut-cell capacity construction (geometric moments) in JAX.
 
-TPU-native re-implementation of the reference capacity layer
+Array-native re-implementation of the reference capacity layer
 (``/root/reference/src/capacity.jl``): for a signed-distance ``body`` and a
 Cartesian mesh it produces the diagonal "capacities" that parameterize every
 discrete operator:
@@ -240,7 +240,7 @@ def compute_capacity(body, mesh, p: int = 8, s: int = 2, dtype=None,
     jitted XLA program (compiles once per (body, mesh) shape,
     persistent-cached across processes).
 
-    ``band_budget`` enables the narrow-band path (the TPU answer to the
+    ``band_budget`` enables the narrow-band path (the answer to the
     reference's full-grid VOFI sweep, src/capacity.jl:81-123): cells whose
     corner SDF values exceed ``band_safety``×(half cell diagonal) in
     magnitude are classified exactly full/empty from one nodal SDF pass and
@@ -251,13 +251,13 @@ def compute_capacity(body, mesh, p: int = 8, s: int = 2, dtype=None,
     ``body`` to be an actual signed distance (|∇φ| <= 1, up to
     ``band_safety``).
 
-    When to use which (measured, one v5e chip): for *analytic* SDFs XLA
-    fuses the dense sweep to HBM speed (1024² circle: 0.3 ms warm) and the
-    band's compaction overhead only slows it down — keep ``None``.  For
-    *expensive* SDFs (marker polylines: O(n_markers) per sample) the band
-    skips ~97% of the samples and wins large (512² space-time slab with
-    512 markers: 350 ms → 46 ms); the front-tracking/moving solvers enable
-    it automatically.
+    When to use which: for *analytic* SDFs XLA fuses the dense sweep into
+    one streaming pass and the band's compaction overhead only slows it
+    down — keep ``None``.  For *expensive* SDFs (marker polylines:
+    O(n_markers) per sample) the band skips ~97% of the samples; the
+    front-tracking/moving solvers enable it automatically.  The crossover
+    was tuned on an earlier accelerator and is not yet remeasured on the
+    GPU.
     """
     if dtype is None:
         dtype = jnp.zeros(0).dtype  # respects jax_enable_x64

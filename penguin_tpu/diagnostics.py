@@ -2,7 +2,7 @@
 
 The reference's observability is ``println`` scattered through solver loops
 plus per-iteration PNG dumps (SURVEY §5: diffusion.jl:279,297,
-navierstokes.jl:1410,1463, stefan.jl:845-859).  TPU-native replacement:
+navierstokes.jl:1410,1463, stefan.jl:845-859).  Here:
 
 - ``timed(name)`` — context manager timing a block with
   ``block_until_ready`` semantics on an optional result array, recording

@@ -1,6 +1,6 @@
 """Marker-based front tracking in fixed-shape JAX.
 
-TPU-native re-design of ``/root/reference/src/front_tracking.jl`` (2752 LoC
+Array-native re-design of the reference's ``src/front_tracking.jl`` (2752 LoC
 built on LibGEOS polygon clipping): here the interface is a closed polyline
 of ``n_markers`` points stored as a (n, 2) array, and every geometric query
 is a batched fixed-shape computation:
@@ -130,10 +130,10 @@ def polyline_sdf(markers, x, y, chunk=32):
 
     The segment loop runs as a ``lax.scan`` over blocks of ``chunk``
     segments carrying a running (min-distance², crossing-count): a single
-    materialized ``(points, n_markers)`` pairwise array is HBM-bound (at
-    256² quadrature × 256 markers it is several GB of traffic and costs
-    ~56 ms/eval on one v5e chip); the blocked reduction keeps the pairwise
-    tile in registers/VMEM."""
+    materialized ``(points, n_markers)`` pairwise array is bound by device
+    memory traffic (at 256² quadrature × 256 markers it is several GB); the
+    blocked reduction keeps the pairwise tile on chip.  ``chunk`` was
+    tuned on an earlier accelerator and is not yet retuned for the GPU."""
     x, y = jnp.broadcast_arrays(jnp.asarray(x), jnp.asarray(y))
     a, b = _segments(markers)  # (n,2)
     # promote queries and segments to one dtype up front: a mixed

@@ -8,7 +8,7 @@ equations (``x_i = 0``) — exactly equivalent to the reference's
 column ``i`` are structurally nonzero) — and solves are:
 
 - ``direct``: materialize the operator densely (vmapped basis application,
-  a batched matmul-friendly pattern on TPU) + LU.  For small/medium systems.
+  a batched matmul) + LU.  For small/medium systems.
 - ``cg`` / ``bicgstab`` / ``gmres``: jax.scipy matrix-free Krylov with
   optional Jacobi preconditioning; dot products become ``psum`` collectives
   under sharding.
@@ -28,7 +28,19 @@ __all__ = [
     "pcg",
     "pbicgstab",
     "pgmres",
+    "HIGHEST",
+    "vdot",
 ]
+
+# A float32 product on a GPU may run in TF32, which keeps about three
+# decimal digits; Krylov inner products and the small dense products of the
+# preconditioners and normal equations ask for full precision explicitly.
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def vdot(a, b):
+    """Real part of the inner product ⟨a, b⟩ at the dtype's full precision."""
+    return jnp.vdot(a, b, precision=HIGHEST).real
 
 
 # ---------------------------------------------------------------------------
@@ -39,7 +51,7 @@ __all__ = [
 
 def _tdot(a, b):
     """Pytree dot product — becomes a psum collective under sharding."""
-    parts = jax.tree_util.tree_map(lambda x, y: jnp.vdot(x, y).real, a, b)
+    parts = jax.tree_util.tree_map(vdot, a, b)
     return sum(jax.tree_util.tree_leaves(parts))
 
 
@@ -243,7 +255,7 @@ def pgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
         return ravel_pytree(prec(apply_fn(unravel(v))))[0]
 
     tiny, tol = _guards(b, tol)
-    bb = jnp.maximum(jnp.dot(pb_flat, pb_flat), tiny)
+    bb = jnp.maximum(vdot(pb_flat, pb_flat), tiny)
     tol2 = jnp.asarray(tol * tol, dtype)
 
     def cycle_body(st):
@@ -253,7 +265,7 @@ def pgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
         def mgs(i, wh):
             w, h = wh
             keep = (i <= j).astype(dtype)
-            hij = keep * jnp.dot(V[i], w)
+            hij = keep * vdot(V[i], w)
             return (w - hij * V[i], h.at[i].set(hij))
 
         w, h = jax.lax.fori_loop(
@@ -314,7 +326,7 @@ def pgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
         Rm = Rm - jnp.diag(jnp.diagonal(Rm)) + jnp.diag(dsafe)
         gm = jnp.where(jnp.arange(m) < j_f, g[:m], 0.0)
         y = jax.scipy.linalg.solve_triangular(Rm, gm, lower=False)
-        x_new = x + V[:m].T @ y
+        x_new = x + jnp.matmul(V[:m].T, y, precision=HIGHEST)
         return x_new, jnp.abs(g[j_f]), j_f
 
     def cond(st):
@@ -355,7 +367,7 @@ def fgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
         return ravel_pytree(prec(unravel(v)))[0]
 
     tiny, tol = _guards(b, tol)
-    bb = jnp.maximum(jnp.dot(b_flat, b_flat), tiny)
+    bb = jnp.maximum(vdot(b_flat, b_flat), tiny)
     tol2 = jnp.asarray(tol * tol, dtype)
 
     def cycle_body(st):
@@ -367,7 +379,7 @@ def fgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
         def mgs(i, wh):
             w, h = wh
             keep = (i <= j).astype(dtype)
-            hij = keep * jnp.dot(V[i], w)
+            hij = keep * vdot(V[i], w)
             return (w - hij * V[i], h.at[i].set(hij))
 
         w, h = jax.lax.fori_loop(
@@ -421,7 +433,8 @@ def fgmres(apply_fn, b, x0, Minv=None, tol=1e-8, maxiter=500, restart=40):
         # still vanish for the y-vector itself to be the LS solution
         gm = jnp.where(jnp.arange(m) < j_f, g[:m], 0.0)
         y = jax.scipy.linalg.solve_triangular(Rm, gm, lower=False)
-        return x + Z.T @ y, jnp.abs(g[j_f]), j_f
+        return (x + jnp.matmul(Z.T, y, precision=HIGHEST), jnp.abs(g[j_f]),
+                j_f)
 
     def cond(st):
         x, rnorm, k = st

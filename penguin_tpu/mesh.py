@@ -1,4 +1,4 @@
-"""Cartesian meshes for the TPU-native cut-cell framework.
+"""Cartesian meshes for the cut-cell framework.
 
 Grid convention (kept compatible with the reference implementation,
 ``/root/reference/src/mesh.jl:41-79``):

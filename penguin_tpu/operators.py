@@ -2,10 +2,10 @@
 
 The reference builds global sparse matrices by Kronecker products of ±1-shift
 1D stencils with diagonal capacity matrices
-(``/root/reference/src/operators.jl:9-13,92-158``).  On TPU we never
-materialize anything: every operator is a fused elementwise+shift pipeline
-over dense padded N-D arrays, which XLA maps straight onto the VPU with all
-reads streaming from HBM once.
+(reference ``src/operators.jl:9-13,92-158``).  Here nothing is
+materialized: every operator is a fused elementwise+shift pipeline over
+dense padded N-D arrays, which XLA compiles into streaming loops that read
+each input from device memory once.
 
 Exact stencil semantics (including the quirky padding-row behaviour of the
 reference matrices, which the assembled systems rely on):

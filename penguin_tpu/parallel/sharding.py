@@ -1,11 +1,12 @@
-"""Multi-chip domain decomposition.
+"""Multi-device domain decomposition.
 
 The reference is single-process (SURVEY.md §2: no Distributed/MPI/threads);
-the TPU-native scaling story is grid domain decomposition over a
+the scaling story here is grid domain decomposition over a
 ``jax.sharding.Mesh``: shard the padded DOF arrays over ('x','y') device
-axes and let XLA's SPMD partitioner turn the ±1-shift stencils into ICI
-halo exchanges (``ppermute``) and the Krylov dot products into ``psum``
-collectives.  No communication is hand-written — the operators in
+axes and let XLA's SPMD partitioner turn the ±1-shift stencils into halo
+exchanges (``collective-permute``, NVLink between the GPUs of one host) and
+the Krylov dot products into ``psum`` collectives.  The mesh shape follows
+the grid alone: every GPU of a host reaches every other at the same rate.  No communication is hand-written — the operators in
 ``operators.py`` are ordinary shifted-array expressions, which is exactly
 the form GSPMD partitions optimally.
 """
@@ -90,8 +91,9 @@ def shard_pytree(tree, sharding):
 def dryrun_heat_multichip(n_devices, grid=(63, 63)):
     """Build the flagship 2D cut-cell heat step, shard every field over an
     ('x','y') device mesh, and execute ONE implicit step (rhs + CG solve)
-    SPMD.  Exercises the full multi-chip code path: halo exchange for the
-    shift stencils, psum for the CG dot products."""
+    SPMD.  Exercises the full multi-device code path: halo exchange for the
+    shift stencils, psum for the CG dot products.  Returns the max
+    difference from the same step on one device."""
     import jax.numpy as jnp
 
     import penguin_tpu as pt
@@ -104,7 +106,6 @@ def dryrun_heat_multichip(n_devices, grid=(63, 63)):
     mesh = padded_mesh(dev_mesh, (nx, ny), (4.0, 4.0), (0.0, 0.0))
     body = pt.geometry.circle((2.0, 2.0), 1.0)
     cap = pt.compute_capacity(body, mesh, p=4, s=1, dtype=jnp.float32)
-    ops = pt.make_diffusion_ops(cap)
     bc = pt.Dirichlet(1.0)
     bc0 = pt.Dirichlet(0.0)
     bc_b = pt.BorderConditions(
@@ -112,30 +113,37 @@ def dryrun_heat_multichip(n_devices, grid=(63, 63)):
     )
     dt = 0.25 * (4.0 / nx) ** 2
 
+    def stepper(cap):
+        return FastHeatBE(cap, pt.make_diffusion_ops(cap), 1.0,
+                          lambda x, y, z, t: 0.0, bc, bc_b, dt, cg_tol=1e-5,
+                          cg_maxiter=16, dtype=jnp.float32)
+
+    # the one-device reference: every array on the first device
+    cap_one = jax.device_put(cap, jax.devices()[0])
+    T1_ref, _ = stepper(cap_one).step(jnp.zeros(mesh.np_shape, jnp.float32))
+    T1_ref = np.asarray(T1_ref)
+    del cap_one
+
     sharding = grid_sharding(dev_mesh)
-    cap = shard_pytree(cap, sharding)
-    ops = pt.make_diffusion_ops(cap)
-
-    fast = FastHeatBE(cap, ops, 1.0, lambda x, y, z, t: 0.0, bc, bc_b, dt,
-                      cg_tol=1e-5, cg_maxiter=16, dtype=jnp.float32)
-
+    fast = stepper(shard_pytree(cap, sharding))
     T0 = jax.device_put(jnp.zeros(mesh.np_shape, jnp.float32), sharding)
     step = jax.jit(fast.step, in_shardings=sharding,
                    out_shardings=(sharding, None))
     T1, iters = step(T0)
     T1.block_until_ready()
-    # sanity: the sharded step must agree with the unsharded one
-    T1_ref, _ = fast.step(jax.device_put(jnp.zeros(mesh.np_shape, jnp.float32)))
-    err = float(jnp.abs(T1 - T1_ref).max())
+    assert len(T1.sharding.device_set) == len(dev_mesh.devices.flat), \
+        f"sharded step landed on {T1.sharding.device_set}"
+    # the sharded step must agree with the one-device one
+    err = float(np.abs(np.asarray(T1) - T1_ref).max())
     assert err < 1e-5, f"sharded vs single-device mismatch: {err}"
-    return T1
+    return err
 
 
 def dryrun_stokes_multichip(n_devices, grid=(31, 31)):
     """Shard the monolithic Stokes saddle-point state (staggered velocity
     components + pressure) over the device mesh and execute the matrix-free
-    apply SPMD — the operator whose shifts/divergences become ICI halo
-    exchanges in a production multi-chip Stokes solve."""
+    apply SPMD — the operator whose shifts/divergences become halo
+    exchanges in a production multi-device Stokes solve."""
     import jax.numpy as jnp
 
     import penguin_tpu as pt
@@ -348,7 +356,11 @@ def dryrun_ns_picard_multichip(n_devices, grid=(48, 24), n_steps=2,
     pressure grid — but the momentum/convection/Krylov path must stay
     decomposed; the assertion therefore bounds the number of gathered
     grid-sized arrays by what the DCT plan itself needs per application
-    instead of demanding zero)."""
+    instead of demanding zero).
+
+    Returns ``{"err_M": preconditioner max|sharded - one device| over
+    max(scale, 1), "relres": max fgmres relres, "gathers": grid-sized
+    all-gathers (None without ``check_hlo``)}``."""
     import re
 
     import jax.numpy as jnp
@@ -439,8 +451,10 @@ def dryrun_ns_picard_multichip(n_devices, grid=(48, 24), n_steps=2,
                                            **kw)
     for a in x_sh:
         assert bool(jax.numpy.isfinite(a).all()), "non-finite SPMD state"
-    assert float(np.asarray(solver_sh.krylov_relres).max()) < 1e-6, \
-        solver_sh.krylov_relres
+    relres = float(np.asarray(solver_sh.krylov_relres).max())
+    assert relres < 1e-6, solver_sh.krylov_relres
+    out = {"err_M": err_M / max(scale_M, 1.0), "relres": relres,
+           "gathers": None}
 
     if check_hlo:
         run = next(iter(solver_sh._picard_run_cache.values()))
@@ -462,8 +476,8 @@ def dryrun_ns_picard_multichip(n_devices, grid=(48, 24), n_steps=2,
         assert len(offenders) <= 4, (
             f"{len(offenders)} grid-sized all-gathers in the Picard NS "
             "scan (DCT budget is 4):\n" + "\n".join(offenders[:8]))
-        return x_sh, len(offenders)
-    return x_sh, None
+        out["gathers"] = len(offenders)
+    return out
 
 
 def dryrun_stefan_multichip(n_devices, grid=(32, 32), nm=32,

@@ -1,6 +1,6 @@
 """Vectorized cut-cell quadrature.
 
-This is the TPU-native replacement for the reference's external integration
+This is the array-native replacement for the reference's external integration
 packages (``CartesianGeometry.integrate`` / ``ImplicitIntegration.integrate``
 used in ``/root/reference/src/capacity.jl:81-123,214-441``): every geometric
 moment is computed by a fixed-shape, batched quadrature that XLA can fuse.

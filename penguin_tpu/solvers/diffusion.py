@@ -1,6 +1,6 @@
 """Scalar diffusion solvers: steady/unsteady, mono/diphasic.
 
-TPU-native re-design of ``/root/reference/src/solver/diffusion.jl``: the
+Matrix-free re-design of the reference's ``src/solver/diffusion.jl``: the
 2-block (bulk T_omega + interface T_gamma) and 4-block (two phases + jump
 rows) systems are solved matrix-free; the unsteady drivers jit one implicit
 step (rhs build + solve) and run it under ``lax.scan``, with the dense LU

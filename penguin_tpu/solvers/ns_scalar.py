@@ -314,8 +314,7 @@ class NavierStokesScalarCoupler:
         Jacobi-preconditioned BiCGStab.  The Picard sweep count is fixed
         (unrolled in the trace) rather than tolerance-gated — call this in
         chunks and check convergence between chunks, like the unsteady NS
-        benchmarks do (one multi-minute device-side scan can trip the TPU
-        runtime watchdog).
+        benchmarks do (short device-side scans).
 
         The reference marches this coupling with per-step sparse factor
         solves (navierstokes_scalar_coupling.jl:370-420); here the whole

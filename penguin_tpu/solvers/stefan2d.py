@@ -48,6 +48,7 @@ from ..front_tracking import (
     resample_markers,
     smooth_displacements,
 )
+from ..linsolve import HIGHEST
 from .diffusion import _ScalarSolverBase
 from .moving_diffusion import (
     _direct_solve,
@@ -347,11 +348,12 @@ class StefanMono2D(_ScalarSolverBase):
                 F, Tn, klv_it = residual(Told, mk_a, normals, d, t)
                 Fv = F.ravel()
                 J = jac_fn(d, mk_a, normals)  # (ncells, nm)
-                JTJ = J.T @ J
+                JTJ = jnp.matmul(J.T, J, precision=HIGHEST)
                 diag = jnp.diagonal(JTJ)
                 diag = jnp.maximum(diag, 1e-10 * jnp.max(diag))
                 A = JTJ + lam * jnp.diag(diag)
-                delta = jnp.linalg.solve(A, J.T @ Fv)
+                delta = jnp.linalg.solve(
+                    A, jnp.matmul(J.T, Fv, precision=HIGHEST))
                 # a non-finite LM step (singular J, diverged inner solve)
                 # must not poison the markers: skip it, let λ adaptation
                 # and the next residual recover
@@ -489,7 +491,7 @@ class StefanMono2D(_ScalarSolverBase):
             D_cell = jnp.where(
                 tot > 1e-12, Fc / (rhoL * jnp.maximum(tot, 1e-12) * sign), 0.0
             )
-            seg_acc = jnp.einsum("xys,xy->s", L, D_cell)
+            seg_acc = jnp.einsum("xys,xy->s", L, D_cell, precision=HIGHEST)
             seg_w = L.sum((0, 1))
             seg_d = jnp.where(seg_w > 1e-12,
                               seg_acc / jnp.maximum(seg_w, 1e-12), 0.0)
@@ -665,10 +667,11 @@ class StefanDiph2D(_ScalarSolverBase):
                 Xn, F = slab_solve(Xold, mk_a, mk_b, t)
                 Fv = F.ravel()
                 J = jac_fn(d, mk_a, normals)
-                JTJ = J.T @ J
+                JTJ = jnp.matmul(J.T, J, precision=HIGHEST)
                 diag = jnp.maximum(jnp.diagonal(JTJ),
                                    1e-10 * jnp.max(jnp.diagonal(JTJ)))
-                delta = jnp.linalg.solve(JTJ + lam * jnp.diag(diag), J.T @ Fv)
+                delta = jnp.linalg.solve(JTJ + lam * jnp.diag(diag),
+                                        jnp.matmul(J.T, Fv, precision=HIGHEST))
                 delta = jnp.where(jnp.isfinite(delta), delta, 0.0)
                 d_new = smooth_displacements(d - alpha * delta, smooth_window,
                                              smooth_passes)

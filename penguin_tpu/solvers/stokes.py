@@ -41,7 +41,7 @@ from ..assembly import (
     _col_H_nz,
 )
 from ..boundary import Dirichlet, Neumann, Outflow, Periodic, Symmetry, Traction
-from ..linsolve import DenseFactorSolver, solve_linear
+from ..linsolve import HIGHEST, DenseFactorSolver, solve_linear, vdot
 from ..operators import dm, dm_t, _shift_p, _shift_m
 
 __all__ = ["StokesMono", "PinPressureGauge", "MeanPressureGauge",
@@ -973,7 +973,7 @@ class StokesMono:
     #                                   Krylov method)
     #   z_u = y − Â⁻¹ G z_p
     # The reference has no analogue (it factorizes the saddle point with
-    # UMFPACK, stokes.jl:1512-1567); this is the TPU-native replacement.
+    # UMFPACK, stokes.jl:1512-1567); this is the matrix-free replacement.
     # ------------------------------------------------------------------
     def make_block_preconditioner(self, dt=None, theta=1.0, cheb_iters=20,
                                   lmin=None, lmax=None, conv_diag=None,
@@ -1072,7 +1072,7 @@ class StokesMono:
                 lam = jnp.asarray(1.0, jnp.zeros(0).dtype)
                 for _ in range(iters):
                     w = _deflate(op(vk))
-                    lam = jnp.vdot(vk, w).real
+                    lam = vdot(vk, w)
                     vk = w / jnp.maximum(jnp.linalg.norm(w), 1e-300)
                 return lam
 
@@ -1113,9 +1113,9 @@ class StokesMono:
         if schur == "dct_cg":
             # Constant-coefficient DCT-II Poisson surrogate of Lp as the
             # inner-CG preconditioner: mesh-size-independent (one forward/
-            # inverse DCT per application, fast on TPU), exact for the
-            # uniform-coefficient Neumann Laplacian that Lp is away from
-            # the cut region and borders.  Jacobi-PCG needs ~sqrt(cond) ~
+            # inverse DCT per application), exact for the uniform-coefficient
+            # Neumann Laplacian that Lp is away from the cut region and
+            # borders.  Jacobi-PCG needs ~sqrt(cond) ~
             # O(n) iterations on an n² grid; with the DCT surrogate the
             # inner iteration count is O(1) in mesh size (only the cut/
             # border discrepancy remains for CG to correct).
@@ -1136,13 +1136,12 @@ class StokesMono:
 
             # DCT-II as a MATMUL, not an FFT: Y = C X with
             # C[k,j] = s_k cos(pi (j+1/2) k / n) (ortho), inverse = Cᵀ.
-            # TPU-native on two counts: the transform rides the MXU (two
-            # n³ matmuls beat the FFT's latency up to ~2k grids), and it
-            # partitions cleanly under GSPMD — a sharded operand times a
+            # It partitions cleanly under GSPMD — a sharded operand times a
             # replicated cosine matrix is a plain collective matmul,
             # whereas the FFT lowering both materializes the grid and
             # trips an XLA:CPU layout RET_CHECK when the input is sharded
-            # (observed in dryrun_ns_picard_multichip).
+            # (observed in dryrun_ns_picard_multichip).  Which of the two
+            # is faster on a GPU is not measured yet.
             dtype0 = mask_dtype = jnp.zeros(0).dtype
             Cmats = []
             for d in range(N):
@@ -1155,8 +1154,8 @@ class StokesMono:
                 Cmats.append(jnp.asarray(Cd, dtype0))
 
             def _along(M, x, axis):
-                return jnp.moveaxis(jnp.moveaxis(x, axis, -1) @ M.T,
-                                    -1, axis)
+                return jnp.moveaxis(jnp.matmul(jnp.moveaxis(x, axis, -1), M.T,
+                                               precision=HIGHEST), -1, axis)
 
             def dct_inv(s):
                 sc = s[core]
@@ -1203,16 +1202,16 @@ class StokesMono:
             x = jnp.zeros_like(bp)
             z = inner_prec(r)
             p_ = z
-            rz = jnp.vdot(r, z).real
+            rz = vdot(r, z)
             for _ in range(schur_cg_iters):
                 Ap_ = _deflate(Lp(p_))
-                pAp = jnp.vdot(p_, Ap_).real
+                pAp = vdot(p_, Ap_)
                 alpha = rz / jnp.where(pAp <= 0.0, 1.0, pAp)
                 alpha = jnp.where(pAp <= 0.0, 0.0, alpha)
                 x = x + alpha * p_
                 r = r - alpha * Ap_
                 z = inner_prec(r)
-                rz_new = jnp.vdot(r, z).real
+                rz_new = vdot(r, z)
                 beta = rz_new / jnp.where(rz == 0.0, 1.0, rz)
                 beta = jnp.where(rz == 0.0, 0.0, beta)
                 rz = rz_new
@@ -1293,7 +1292,8 @@ class StokesMono:
 
                     def _along_m(Mt, x, axis):
                         return jnp.moveaxis(
-                            jnp.moveaxis(x, axis, -1) @ Mt.T, -1, axis)
+                            jnp.matmul(jnp.moveaxis(x, axis, -1), Mt.T,
+                                       precision=HIGHEST), -1, axis)
 
                     def dst_inv(r, lam_m=lam_m, Smats=Smats,
                                 core_d=core_d, act_d=act_d):
@@ -1334,16 +1334,16 @@ class StokesMono:
                         r_ = b_
                         z = prec(r_)
                         p_ = z
-                        rz = jnp.vdot(r_, z).real
+                        rz = vdot(r_, z)
                         for _ in range(mom_cg_iters):
                             Ap_ = Aop(p_)
-                            pAp = jnp.vdot(p_, Ap_).real
+                            pAp = vdot(p_, Ap_)
                             alpha = rz / jnp.where(pAp <= 0.0, 1.0, pAp)
                             alpha = jnp.where(pAp <= 0.0, 0.0, alpha)
                             x = x + alpha * p_
                             r_ = r_ - alpha * Ap_
                             z = prec(r_)
-                            rz_new = jnp.vdot(r_, z).real
+                            rz_new = vdot(r_, z)
                             beta = rz_new / jnp.where(rz == 0.0, 1.0, rz)
                             beta = jnp.where(rz == 0.0, 0.0, beta)
                             rz = rz_new
@@ -1401,9 +1401,8 @@ class StokesMono:
         """Steady solve.  ``auto``: dense LU for small systems, else
         block-Schur-preconditioned GMRES (``schur_gmres``) — the scalable
         saddle-point path (the reference factorizes with UMFPACK,
-        src/solver/stokes.jl:1512-1567; on TPU the approximate block-LDU
-        inverse + restarted GMRES replaces it, seconds instead of minutes
-        where the dense fallback was used before)."""
+        src/solver/stokes.jl:1512-1567; here the approximate block-LDU
+        inverse + restarted GMRES replaces it)."""
         b = self.rhs_steady()
         if method == "auto":
             nflat = sum(int(np.prod(np.asarray(u.shape))) for u in b)

@@ -2,9 +2,9 @@
 
 Usage:  python scripts/run_example_cpu.py examples/1D/poisson.py [args...]
 
-The examples run on whatever backend jax picks by default (TPU when
-available); this wrapper forces CPU before jax initializes — handy for CI
-and for machines where the TPU is busy.
+The examples run on whatever backend jax picks by default (the GPU when
+there is one); this wrapper forces CPU before jax initializes — handy for
+CI and for machines where the GPU is busy.
 """
 
 import os

@@ -2,7 +2,7 @@
 test/convergence_test.jl:51-70, global weighted L2 < 1e-2 at n=40).
 
 The 137k-unknown system is solved matrix-free with Jacobi-preconditioned
-BiCGStab — the TPU-native replacement for the reference's sparse direct
+BiCGStab — the matrix-free replacement for the reference's sparse direct
 backslash."""
 
 import numpy as np

@@ -1,6 +1,6 @@
-"""f32 (TPU-native precision) robustness regressions.
+"""f32 (production precision) robustness regressions.
 
-The TPU runs the production path in float32.  Three failure modes were
+The accelerator runs the production path in float32.  Three failure modes were
 found and fixed in round 3 — each silently broke the flagship Stefan
 front-tracking GN loop in f32 while every f64 test stayed green:
 
@@ -128,7 +128,7 @@ print("OK", R_end)
 @pytest.mark.slow
 def test_stefan_gn_moves_in_f32():
     """Three f32 GN steps on the Frank disk in a pure-f32 subprocess (x64
-    off, the production TPU precision): the front must actually grow (the
+    off, the production precision): the front must actually grow (the
     regression froze it at the initial radius with zero GN updates)."""
     import subprocess
     import sys as _sys

@@ -42,9 +42,9 @@ def test_fast_heat_matches_general():
 
 
 def test_f32_matches_f64_heat():
-    """SURVEY §4 JAX-specific gate: the f32 production path (the TPU
-    dtype) agrees with the f64 verification path to single-precision
-    tolerance on the benchmark configuration (scaled down)."""
+    """SURVEY §4 JAX-specific gate: the f32 production path agrees with
+    the f64 verification path to single-precision tolerance on the
+    benchmark configuration (scaled down)."""
     nx = 64
     lx = 4.0
     mesh = pt.Mesh((nx, nx), (lx, lx), (0.0, 0.0))
@@ -69,9 +69,7 @@ def test_f32_matches_f64_heat():
 
 
 def test_fast_heat_3d_matches_general():
-    """The 3D stencil collapse (and, on TPU, the 7-point Pallas kernel —
-    exercised separately by benchmarks/stencil_roofline.py; under pytest
-    this runs the XLA path on CPU) must reproduce the general solver."""
+    """The 3D stencil collapse must reproduce the general solver."""
     n = (12, 10, 14)
     mesh = pt.Mesh(n, (2.0, 2.0, 2.0), (0.0, 0.0, 0.0))
     body = pt.geometry.sphere((1.0, 1.0, 1.0), 0.7)

@@ -14,8 +14,9 @@ def test_dryrun_heat_multichip():
 
 
 def test_graft_entry_singlechip():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -94,5 +95,5 @@ def test_dryrun_ns_picard_multichip():
     (the matmul DCT partitions; the FFT lowering did not)."""
     from penguin_tpu.parallel.sharding import dryrun_ns_picard_multichip
 
-    _, n_gathers = dryrun_ns_picard_multichip(8)
+    n_gathers = dryrun_ns_picard_multichip(8)["gathers"]
     assert n_gathers == 0, n_gathers

@@ -1,5 +1,5 @@
 """3D Stokes smoke test (the solver is dimension-generic) and a vmapped
-parameter sweep — the TPU-native 'data parallel' analogue from SURVEY §2:
+parameter sweep — the 'data parallel' analogue from SURVEY §2:
 batches of geometries solved in one compiled program."""
 
 import numpy as np
