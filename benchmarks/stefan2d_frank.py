@@ -68,12 +68,14 @@ def run(case, n_steps, jac="intercept"):
     calls run the identical problem and reuse the solver's compiled loop).
     Returns (front radius, analytic radius)."""
     case.front.markers = case.markers0
-    case.solver.solve(case.front, 0.0, (n_steps + 0.5) * case.dt, case.ic,
+    # the solver marches round(t_end / dt) + 1 steps
+    case.solver.solve(case.front, 0.0, (n_steps - 1) * case.dt, case.ic,
                       newton_params=NEWTON, interior_fluid=False,
                       method="auto", jac=jac, p=4, s=1)
     mk = np.asarray(case.solver.markers)
     R_end = float(np.sqrt(((mk - np.asarray(case.center)) ** 2).sum(1)).mean())
-    R_ana = case.S * np.sqrt(case.t0 + len(case.solver.iters_log) * case.dt)
+    R_ana = float(case.S * np.sqrt(case.t0
+                                   + len(case.solver.iters_log) * case.dt))
     return R_end, R_ana
 
 

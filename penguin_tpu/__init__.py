@@ -1,6 +1,6 @@
 """penguin_tpu — a cut-cell finite-volume framework for accelerators.
 
-From-scratch JAX/XLA/Pallas re-design of the capabilities of the Julia
+From-scratch JAX/XLA re-design of the capabilities of the Julia
 reference Penguin.jl (see SURVEY.md): level-set capacity construction,
 matrix-free cut-cell operators, scalar diffusion / advection-diffusion /
 Darcy solvers, diphasic interface-jump systems, moving interfaces (prescribed
